@@ -13,12 +13,12 @@ JincResize.cpp:395-418, reproduced by the builder):
 Implementation note: a strip touches only an (fs x W) source band. All
 fs x fs tap windows of that band are materialized at once as a sliding-window
 tensor (fs static slices), the per-destination window rows are assembled with
-per-phase strided slices plus one small exception gather, and a single einsum
-against the per-pixel strip weights produces the strip. Total ~30 XLA ops per
-strip — the per-(ly,lx) formulation costs fs^2 tiny kernels whose launch
-overhead alone exceeded the interior kernel time (measured ~50 ms at 8K).
+per-phase strided slices plus one small exception gather, and one tap sum
+(apply_xla.tap_sum) against the per-pixel strip weights produces the strip.
+Total ~30 XLA ops per strip, where the per-(ly,lx) formulation costs fs^2 tiny kernels whose
+launch overhead alone can exceed the interior's time.
 
-Falls back to the einsum strip path (apply_conv._strip_values) for degenerate
+Falls back to the per-pixel strip path (apply_conv._strip_values) for degenerate
 geometries (src smaller than the filter, aperiodic axes).
 """
 
@@ -30,7 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-f32 = jnp.float32
+from .apply_xla import tap_sum
 
 
 @dataclass(frozen=True)
@@ -50,7 +50,7 @@ class StripPlan:
 
 
 def plan_strips(op, phase_plan) -> list[StripPlan] | None:
-    """Build strip plans; None if preconditions fail (use einsum fallback)."""
+    """Build strip plans; None if preconditions fail (use the per-pixel fallback)."""
     fs = op.filter_size
     if op.src_width < fs or op.src_height < fs:
         return None
@@ -112,21 +112,7 @@ def _sliding(band: jax.Array, fs: int, axis: int) -> jax.Array:
         parts = [jax.lax.slice(band, (0, t), (band.shape[0], t + n)) for t in range(fs)]
     else:
         parts = [jax.lax.slice(band, (t, 0), (t + n, band.shape[1])) for t in range(fs)]
-    if fs <= 32:
-        # Small supports: XLA fuses the stacked slices into the consumer
-        # einsum without materializing the broadcast temps — measured 11.66
-        # vs 11.88 Gpx/s on the 4K->8K headline when forced onto the concat
-        # form below, so keep the stack here.
-        return jnp.stack(parts, axis=-1)
-    # Large supports: concatenate + reshape, NOT stack. Any stack broadcasts
-    # every part to a rank-3 temp with a size-1 axis, and XLA's layout
-    # assignment makes that axis minor — the TPU (8, 128) tiling then pads
-    # it 128x, which planned 62 GB of HBM at fs=65 (tap16 4K downscale,
-    # measured OOM r5; stack axis=-1 and axis=0 both hit it). Concat keeps
-    # the parts' own 2-D layout; the reshape is free and one moveaxis
-    # materializes the final (A, n, fs) windows once.
-    cat = jnp.concatenate(parts, axis=0).reshape(fs, *parts[0].shape)
-    return jnp.moveaxis(cat, 0, -1)
+    return jnp.stack(parts, axis=-1)
 
 
 def _assemble_windows(
@@ -157,18 +143,10 @@ def _assemble_windows(
     return vec
 
 
-def strip_values_fast(dop, strip_plans, src_f, only=None):
-    """Compute strip value blocks with static slicing only.
-
-    Returns [(index, (y0, y1, x0, x1), values)]; ``only`` (tuple of indices
-    into dop.strips) restricts which strips are computed — used when the
-    Pallas strip kernel already covered the rest.
-    """
+def apply_strips_fast(dop, strip_plans, src_f, canvas):
+    """Write every strip into the canvas, with static slicing only."""
     fs = dop.filter_size
-    out = []
-    for i, (s, sp) in enumerate(zip(dop.strips, strip_plans)):
-        if only is not None and i not in only:
-            continue
+    for s, sp in zip(dop.strips, strip_plans):
         y0, y1, x0, x1 = sp.rect
         ny, nx = y1 - y0, x1 - x0
         c = sp.const_start
@@ -178,9 +156,7 @@ def strip_values_fast(dop, strip_plans, src_f, only=None):
             vec = _assemble_windows(
                 S, sp, nx, x0, dop.start_x, jnp.asarray(sp.exc)
             )  # (fs_ly, nx, fs_lx)
-            acc = jnp.einsum(
-                "kxl,yxkl->yx", vec, s.blocks, preferred_element_type=f32
-            )
+            acc = tap_sum(vec[:, None], s.blocks)
         else:
             band = jax.lax.slice(src_f, (0, c), (src_f.shape[0], c + fs))
             S0 = _sliding(band, fs, axis=0)  # (U, fs_lx, fs_ly)
@@ -188,17 +164,6 @@ def strip_values_fast(dop, strip_plans, src_f, only=None):
             vec = _assemble_windows(
                 S, sp, ny, y0, dop.start_y, jnp.asarray(sp.exc)
             )  # (fs_lx, ny, fs_ly)
-            acc = jnp.einsum(
-                "lyk,yxkl->yx", vec, s.blocks, preferred_element_type=f32
-            )
-        out.append((i, sp.rect, acc))
-    return out
-
-
-def apply_strips_fast(dop, strip_plans, src_f, canvas, only=None):
-    """Accumulate strips into the canvas with static slicing only."""
-    for _, (y0, y1, x0, x1), acc in strip_values_fast(
-        dop, strip_plans, src_f, only
-    ):
+            acc = tap_sum(jnp.transpose(vec, (2, 1, 0))[:, :, None], s.blocks)
         canvas = jax.lax.dynamic_update_slice(canvas, acc, (y0, x0))
     return canvas

@@ -1,17 +1,17 @@
 """XLA general apply path: jitted gather-MAC over the device-resident operator.
 
-TPU-native replacement for the reference's per-pixel SIMD gather loops
+Replacement for the reference's per-pixel SIMD gather loops
 (``resize_plane_{c,sse41,avx2,avx512}`` — /root/reference/src/JincResize.cpp:536-601
 and the resize_plane_*.cpp kernels): instead of a 48-way ISA dispatch, one
 jitted program per plane geometry. XLA owns codegen; an ``impl`` switch at the
-API level selects between this general path and the Pallas kernels.
+API level selects between this general path and the phase-conv path
+(apply_conv.py) for periodic geometry.
 
 Structure: the per-pixel weight for tap (ly, lx) is assembled as a
 (dst_h, dst_w) map — interior via two *separable* gathers from the class-pair
 dictionary, border strips via static dynamic-update-slices — then multiplied
 with the separably-gathered source tap plane and accumulated in float32 in
-the reference's ly-major/lx-minor order (a ``lax.scan`` over fs^2 steps keeps
-compile time flat for large taps).
+the reference's ly-major/lx-minor order.
 """
 
 from __future__ import annotations
@@ -24,6 +24,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from .operator import PlaneOperator
+
+# Precision of every contraction on the parity path (this module,
+# apply_conv, apply_strips_fast, sharding). On the GPU a float32 dot_general
+# at DEFAULT precision may run in TF32, which breaks parity with the host
+# golden; HIGHEST keeps full float32 products.
+PARITY_PRECISION = jax.lax.Precision.HIGHEST
 
 
 @partial(
@@ -114,8 +120,8 @@ def apply_plane(
 ) -> jax.Array:
     """Resample one plane: (src_h, src_w) -> (dst_h, dst_w) float32 accumulator.
 
-    TPU-aware structure: per-element 2-D gathers are pathological on TPU, so
-    the horizontal tap window is materialized ONCE as an im2col column gather
+    Structure: per-element 2-D gathers are index-bound, so the horizontal
+    tap window is materialized ONCE as an im2col column gather
     ``P[src_row, x, lx]``; the per-tap-row work is then (a) a contiguous
     row gather of P (whole 522KB rows, near-memcpy), (b) a small column
     gather of the class dictionary, and (c) a fused multiply + lx-reduction.
@@ -151,7 +157,11 @@ def apply_plane(
         for ly in range(fs):
             panex = dop.pair_blocks[:, dop.cx_idx, ly, :]  # (n_uy, dst_w, fs)
             T = jnp.einsum(
-                "hwk,cwk->chw", P, panex, preferred_element_type=jnp.float32
+                "hwk,cwk->chw",
+                P,
+                panex,
+                preferred_element_type=jnp.float32,
+                precision=PARITY_PRECISION,
             )
             rows = jnp.clip(dop.start_y + ly, 0, H - 1)
             flat = dop.cy_idx.astype(jnp.int32) * H + rows
@@ -174,9 +184,7 @@ def apply_plane(
                 H - 1,
             )
             G = Ps[rows_s]  # (ny, k, nx, l)
-            vals = jnp.einsum(
-                "ykxl,yxkl->yx", G, s.blocks, preferred_element_type=jnp.float32
-            )
+            vals = tap_sum(jnp.moveaxis(G, 1, 0), s.blocks)
             acc = jax.lax.dynamic_update_slice(acc, vals, (s.y0, s.x0))
         return acc
 
@@ -192,8 +200,37 @@ def apply_plane(
             sb = s.blocks[:, :, ly, :]  # (ny, nx, fs)
             Wrow = jax.lax.dynamic_update_slice(Wrow, sb, (s.y0, s.x0, 0))
         acc = acc + jnp.einsum(
-            "ywk,ywk->yw", Prow, Wrow, preferred_element_type=jnp.float32
+            "ywk,ywk->yw",
+            Prow,
+            Wrow,
+            preferred_element_type=jnp.float32,
+            precision=PARITY_PRECISION,
         )
+    return acc
+
+
+def tap_sum(P: jax.Array, W: jax.Array) -> jax.Array:
+    """``sum_{a,l} P[a, ..., l] * W[..., a, l]``, accumulated one tap at a
+    time in row-major (a, l) order from zero — the golden's order
+    (golden.apply_plane_numpy). A contraction would sum the fs^2 terms in
+    its own order, whose float32 rounding differs from the golden's by
+    more than 2e-6 at fs=65; in the golden's order only the rounding of
+    each multiply-add can differ.
+
+    ``P``: (fa, *batch, fl) windows, broadcastable against ``W``:
+    (*batch, fa, fl) per-pixel blocks. A ``lax.scan`` over a with l unrolled
+    keeps the program at O(fl) ops.
+    """
+    Wt = jnp.moveaxis(W, -2, 0)  # (fa, *batch, fl)
+
+    def body(acc, xs):
+        p, w = xs
+        for l in range(p.shape[-1]):
+            acc = acc + p[..., l] * w[..., l]
+        return acc, None
+
+    shape = jnp.broadcast_shapes(P.shape[1:-1], Wt.shape[1:-1])
+    acc, _ = jax.lax.scan(body, jnp.zeros(shape, jnp.float32), (P, Wt))
     return acc
 
 

@@ -1,9 +1,9 @@
 """Command-line interface: resample planar frames/clips stored as .npy/.npz.
 
 The reference's "CLI" is the AviSynth script-function registration
-(JincResize.cpp:1042-1111); the TPU rebuild exposes the same parameter
+(JincResize.cpp:1042-1111); this rebuild exposes the same parameter
 surface as a standalone command, plus the rebuild-only capabilities
-(precision modes, engine selection, multi-chip meshes, composed chains):
+(engine selection, multi-device meshes, composed chains):
 
     python -m jincresize_tpu INPUT OUTPUT --width W --height H [--tap N] ...
 
@@ -134,14 +134,14 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--impl",
         default="auto",
-        choices=["auto", "conv", "seg", "gather", "xla", "pallas", "sharded", "numpy"],
+        choices=["auto", "conv", "xla", "sharded", "numpy"],
         help="execution engine (honest dispatch: the named engine runs or errors)",
     )
     ap.add_argument(
         "--precision",
         default="fp32",
         choices=["fp32", "bf16"],
-        help="MXU precision for the fused interior (bf16: documented non-parity fast mode)",
+        help="interior precision; bf16 is accepted and runs as fp32",
     )
     ap.add_argument(
         "--pos-precision",
@@ -177,6 +177,9 @@ def main(argv=None) -> int:
     ap.add_argument("--time", action="store_true", help="print build/apply wall times")
     args = ap.parse_args(argv)
 
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from .api import JincConfig, JincError, jinc_resize_chain, JincResizer
 
     clip, is_clip = _load(args.input, args.clip)

@@ -29,22 +29,25 @@ f32 = np.float32
 f64 = np.float64
 
 
-def materialize_blocks(op: PlaneOperator) -> np.ndarray:
-    """Expand the operator to a dense per-pixel block tensor (dst_h, dst_w, fs, fs).
+def materialize_blocks(op: PlaneOperator, rows=None) -> np.ndarray:
+    """Expand the operator to a dense per-pixel block tensor (n_rows, dst_w, fs, fs).
 
-    Memory-hungry (the un-deduplicated form the reference would occupy with
-    quantize=1); intended for golden checks and the tile compiler on small to
-    medium planes.
+    ``rows`` selects destination rows (default: all). Memory-hungry (the
+    un-deduplicated form the reference would occupy with quantize=1);
+    intended for golden checks on small to medium planes, or on a few rows
+    of a large one.
     """
     fs = op.filter_size
-    out = np.zeros((op.dst_height, op.dst_width, fs, fs), dtype=f32)
+    rows = np.arange(op.dst_height) if rows is None else np.asarray(rows)
+    out = np.zeros((len(rows), op.dst_width, fs, fs), dtype=f32)
     if op.pair_blocks.size:
-        inter = op.pair_blocks[
-            op.cy_idx[op.y_lo : op.y_hi][:, None], op.cx_idx[op.x_lo : op.x_hi][None, :]
+        inside = (rows >= op.y_lo) & (rows < op.y_hi)
+        out[inside, op.x_lo : op.x_hi] = op.pair_blocks[
+            op.cy_idx[rows[inside]][:, None], op.cx_idx[op.x_lo : op.x_hi][None, :]
         ]
-        out[op.y_lo : op.y_hi, op.x_lo : op.x_hi] = inter
     for s in op.strips:
-        out[s.y0 : s.y1, s.x0 : s.x1] = s.blocks
+        sel = (rows >= s.y0) & (rows < s.y1)
+        out[sel, s.x0 : s.x1] = s.blocks[rows[sel] - s.y0]
     return out
 
 
@@ -62,13 +65,15 @@ def apply_plane_numpy(
     out_dtype=None,
     peak: float | None = None,
     float_clamp_min: float | None = None,
+    rows=None,
 ) -> np.ndarray:
     """Vectorized float32 gather-MAC apply of a PlaneOperator (host golden).
 
     ``float_clamp_min`` replicates the SIMD kernels' float-path source clamp
     (``max_ps`` with -0.5 for chroma/alpha, 0.0 for luma/RGB —
     resize_plane_avx2.cpp:24, :89); the reference C kernel does not clamp, so
-    the default is None (C semantics).
+    the default is None (C semantics). ``rows`` computes only those
+    destination rows (same arithmetic, so the same values as the full plane).
     """
     if out_dtype is None:
         out_dtype = src.dtype
@@ -77,11 +82,11 @@ def apply_plane_numpy(
     if float_clamp_min is not None and np.issubdtype(src.dtype, np.floating):
         src_f = np.maximum(src_f, f32(float_clamp_min))
     H, W = src_f.shape
-    blocks = materialize_blocks(op)
-    acc = np.zeros((op.dst_height, op.dst_width), dtype=f32)
+    blocks = materialize_blocks(op, rows)
+    start_y = op.start_y if rows is None else op.start_y[np.asarray(rows)]
+    acc = np.zeros((len(start_y), op.dst_width), dtype=f32)
     for ly in range(fs):
-        rows = np.clip(op.start_y + ly, 0, H - 1)
-        srows = src_f[rows]
+        srows = src_f[np.clip(start_y + ly, 0, H - 1)]
         for lx in range(fs):
             cols = np.clip(op.start_x + lx, 0, W - 1)
             acc = (acc + srows[:, cols] * blocks[:, :, ly, lx]).astype(f32)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import subprocess
 import time
 from dataclasses import dataclass, field
 
@@ -55,6 +56,24 @@ class ThroughputMeter:
         }
         logger.info("throughput: %s", json.dumps(rep))
         return rep
+
+
+def gpu_cards() -> list[str]:
+    """``name, power.limit`` of each NVIDIA GPU, as nvidia-smi prints them.
+
+    A card set below its power limit runs slower under load, so every time
+    the benchmark and the smoke script print names the card beside it.
+    Raises OSError or subprocess.SubprocessError when nvidia-smi is missing
+    or fails.
+    """
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        check=True,
+    )
+    return [ln.strip() for ln in r.stdout.strip().splitlines()]
 
 
 @contextlib.contextmanager

@@ -2,7 +2,7 @@
 
 Launched as 2 CPU processes (2 virtual devices each) by
 tests/test_distributed_mp.py. Each process joins the cluster through
-``distributed.init_distributed`` (the same entry a TPU-pod launch uses,
+``distributed.init_distributed`` (the same entry a multi-host launch uses,
 SURVEY.md §5 distributed backend), builds the cross-process
 ``distributed.global_mesh``, runs the row-sharded apply on a 4-device mesh
 spanning both processes, and checks its addressable output shards against

@@ -170,19 +170,16 @@ def test_precision_validation():
 
 
 def test_precision_bf16_plumbs_and_runs():
-    """bf16 is the documented non-parity fast mode; on CPU interpret the
-    interior executes in fp32 so the result matches the golden exactly —
-    numeric bf16 divergence is a TPU-only property (validated on-device:
-    ~5.8e-3 max abs on [0,1) fp32 sources at 4K->8K tap8)."""
+    """precision='bf16' is accepted and validated; every engine runs full
+    float32 math, so the effective precision is 'fp32' and the result
+    matches the golden."""
     from jincresize_tpu.apply_conv import ConvApplier
     from jincresize_tpu.operator import build_plane_operator, radius_for_tap
 
     op = build_plane_operator(32, 24, 64, 48, radius_for_tap(3))
     a = ConvApplier(op, precision="bf16")
     assert a.precision == "bf16"
-    # Only the fused interior consumes the mode; on CPU (shift interior)
-    # the effective precision reports full fp32.
-    assert a.effective_precision == ("bf16" if a.interior == "fused" else "fp32")
+    assert a.effective_precision == "fp32"
     with pytest.raises(ValueError, match="unknown precision"):
         ConvApplier(op, precision="fp16")
     clip = _clip(yuv420p(8))
@@ -190,7 +187,7 @@ def test_precision_bf16_plumbs_and_runs():
     ref = jinc_resize(clip, 64, 48, impl="numpy").frames[0]
     for name in out.planes:
         d = np.abs(out.planes[name].astype(int) - ref.planes[name].astype(int))
-        assert d.max() <= 1  # u8 sources are bf16-exact; only weights round
+        assert d.max() <= 1
 
 
 def test_batched_clip_matches_per_frame():

@@ -91,21 +91,46 @@ def test_batch_conv():
     assert np.abs(ab - bb).max() <= 1e-6
 
 
-def test_pallas_interior_interpret():
-    """Fused Pallas kernel (interpret mode on CPU) matches the golden."""
+@pytest.mark.parametrize(
+    "sw,sh,dw,dh,tap",
+    [
+        (64, 48, 128, 96, 8),  # exact 2x up, tap 8 (the headline geometry)
+        (96, 60, 64, 40, 3),  # downscale
+        (90, 60, 60, 40, 4),  # 2/3 downscale (p=2, q=3)
+        (64, 64, 256, 256, 3),  # 4x up (p=4, q=1)
+        (40, 30, 200, 150, 3),  # 5x up (many column phases)
+        (64, 48, 128, 96, 6),  # 2x up, tap 6
+    ],
+)
+def test_shift_interior_golden_parity(sw, sh, dw, dh, tap):
+    """ConvApplier's shift-sum interior + strips + fixups vs the golden."""
     import jax.numpy as jnp
 
     from jincresize_tpu.apply_conv import ConvApplier
 
-    op = build_plane_operator(64, 48, 128, 96, radius_for_tap(3))
-    ap = ConvApplier(op, interior="fused")
-    rng = np.random.default_rng(7)
-    src = rng.random((48, 64), dtype=np.float32)
+    op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+    ap = ConvApplier(op)
+    assert ap.interior == "shift"
+    src = np.random.default_rng(1).random((sh, sw), dtype=np.float32)
     a = np.asarray(ap(jnp.asarray(src)))
     b = apply_plane_numpy(op, src)
     assert np.abs(a - b).max() <= 1e-6
-    # u8 finalize through the applier
-    srcu = rng.integers(0, 256, (48, 64)).astype(np.uint8)
+
+
+@pytest.mark.parametrize(
+    "crop",
+    [{}, {"crop_left": 0.25, "crop_top": -0.5}],
+    ids=["u8", "u8-subpixel-crop"],
+)
+def test_shift_interior_golden_parity_u8(crop):
+    """u8 finalize through the applier, with and without a sub-pixel crop."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.apply_conv import ConvApplier
+
+    op = build_plane_operator(64, 48, 128, 96, radius_for_tap(4), **crop)
+    ap = ConvApplier(op)
+    srcu = np.random.default_rng(7).integers(0, 256, (48, 64)).astype(np.uint8)
     au = np.asarray(ap(jnp.asarray(srcu), out_dtype=np.uint8, peak=255.0))
     bu = apply_plane_numpy(op, srcu, out_dtype=np.uint8, peak=255)
     assert np.abs(au.astype(int) - bu.astype(int)).max() <= 1
@@ -119,7 +144,7 @@ def test_api_auto_uses_conv():
     cfg = JincConfig(target_width=128, target_height=96, impl="auto")
     r = JincResizer(clip.format, 64, 48, cfg, frame0=clip.frames[0])
     assert r._applier_luma is not None
-    assert r.engines["luma"] in ("fused", "shift")
+    assert r.engines["luma"] == "shift"
     out = r.process_frame(clip.frames[0])
     ref = JincResizer(
         clip.format,
@@ -135,10 +160,9 @@ def test_api_auto_uses_conv():
 
 
 def test_concat_assembly_with_exceptions():
-    """The single-concatenate canvas assembly must apply exception fixups to
-    the middle block with the same precedence as the legacy paste path.
-    160x120 -> 400x300 (5/2) has 14 y- and 17 x-exceptions with py*px=25,
-    so the fused (interpret) interior takes the concat path."""
+    """Canvas assembly must apply exception fixups with the right
+    precedence against the framing border strips. 160x120 -> 400x300 (5/2)
+    has 14 y- and 17 x-exceptions with py*px=25."""
     import jax.numpy as jnp
 
     from jincresize_tpu.apply_conv import ConvApplier
@@ -146,8 +170,7 @@ def test_concat_assembly_with_exceptions():
     from jincresize_tpu.operator import build_plane_operator, radius_for_tap
 
     op = build_plane_operator(160, 120, 400, 300, radius_for_tap(3))
-    a = ConvApplier(op, interior="fused")
-    assert a._concat is not None
+    a = ConvApplier(op)
     assert a.cop.exc_x.shape[0] and a.cop.exc_y.shape[0]
     src = np.random.default_rng(21).random((120, 160), dtype=np.float32)
     out = np.asarray(a(jnp.asarray(src)))
@@ -156,49 +179,42 @@ def test_concat_assembly_with_exceptions():
 
 
 def test_tap16_deep_downscale_engine_selection():
-    """r4 VERDICT weak #5 / r5 update: tap16 deep downscales (fs=65,
-    fs^2=4225). The phase planner finds the trivial (p=1, q=2) pattern;
-    since r5 the fused kernel's envelope ADMITS single-phase deep-tap plans
-    (measured 6.52 ms/frame at 4K on v5e, 10x the scan form), but the AUTO
-    dispatcher gates deep-tap fused on TPU + outputs >= 1M px (the fs-deep
-    Mosaic compile is minutes-scale). On CPU / small outputs auto lands on
-    the ConvApplier's XLA shift-sum interior — scan form on CPU,
-    channelized-MXU deep-tap form on TPU (_shift_sum_deep) — benched by
-    `bench.py --tap16-downscale`."""
+    """tap16 deep downscales (fs=65, fs^2=4225): the phase planner finds
+    the trivial (p=1, q=2) pattern, so the geometry selects the conv engine,
+    whose interior takes the deep-tap form past SHIFT_UNROLL_MAX; multi-
+    phase deep plans (p=2 per axis, and the wider 4/5 plan) select it too."""
     from jincresize_tpu.api import _select_engine
-    from jincresize_tpu.kernels import pallas_fused
+    from jincresize_tpu.apply_conv import SHIFT_UNROLL_MAX
     from jincresize_tpu.phase import plan_phases
 
     op = build_plane_operator(480, 270, 240, 135, radius_for_tap(16))
     assert op.filter_size == 65
     plan = plan_phases(op)
     assert plan is not None and (plan.y.p, plan.y.q) == (1, 2)
-    # r5: deep-tap plans up to py*px = 4 are inside the fused envelope now
-    # (p=1 and p=2-per-axis both measured on v5e at 1-LSB parity).
-    assert pallas_fused.is_supported(op, plan)
+    assert op.filter_size**2 > SHIFT_UNROLL_MAX
     op2 = build_plane_operator(480, 270, 320, 180, radius_for_tap(16))
     plan2 = plan_phases(op2)
     assert plan2 is not None and (plan2.y.p, plan2.x.p) == (2, 2)
-    assert pallas_fused.is_supported(op2, plan2)
-    # Wider-phase deep-tap plans stay out (unmeasured Mosaic regime).
     op3 = build_plane_operator(480, 270, 384, 216, radius_for_tap(16))
     plan3 = plan_phases(op3)
     assert plan3 is not None and plan3.y.p * plan3.x.p > 4
-    assert not pallas_fused.is_supported(op3, plan3)
-    # CPU backend: auto remains the XLA shift interior.
-    app, engine = _select_engine(op, "auto", "fp32")
-    assert engine == "shift", engine
+    for o in (op, op2, op3):
+        app, engine = _select_engine(o, "auto", "fp32")
+        assert engine == "shift", engine
 
 
-def test_tap16_downscale_scan_shift_parity():
-    """fs=65 (4225 taps) rides the scan-form shift-sum (_shift_sum_scan):
-    unrolled HLO at this size SIGKILLs the TPU compiler. Parity vs the
-    scalar-semantics golden at the conv path's accumulation-order class."""
+def test_tap16_downscale_scan_shift_parity(monkeypatch):
+    """fs=65 (4225 taps) through the scan-form shift-sum (_shift_sum_scan):
+    the unrolled program at this size is too large to compile. Parity vs
+    the scalar-semantics golden at the conv path's accumulation-order
+    class."""
+    from jincresize_tpu import apply_conv
     from jincresize_tpu.apply_conv import ConvApplier
 
+    monkeypatch.setattr(apply_conv, "DEEP_FORM", "scan")
     op = build_plane_operator(480, 270, 240, 135, radius_for_tap(16))
     assert op.filter_size ** 2 > 2048
-    app = ConvApplier(op, interior="shift")
+    app = ConvApplier(op)
     src = np.random.default_rng(9).integers(0, 256, (270, 480)).astype(np.uint8)
     out = np.asarray(app(src, out_dtype=np.uint8, peak=255.0))
     ref = apply_plane_numpy(op, src, out_dtype=np.uint8, peak=255.0)
@@ -206,19 +222,19 @@ def test_tap16_downscale_scan_shift_parity():
 
 
 def test_tap16_downscale_mxu_shift_parity(monkeypatch):
-    """The channelized-MXU deep-tap form (_shift_sum_mxu, the TPU default
-    past SHIFT_UNROLL_MAX) computes the same interior as the scan form:
-    horizontal-tap matmul with vertical taps as channels + diagonal
-    row-shift sum, per vertical residue. Forced on CPU via
-    JINCRESIZE_DEEP_SHIFT; parity vs the scalar golden at the same
-    accumulation-order class, including a 3x (qy=qx=3, fs=98) geometry."""
-    monkeypatch.setenv("JINCRESIZE_DEEP_SHIFT", "mxu")
+    """The channelized matmul deep-tap form (_shift_sum_matmul) computes the
+    same interior as the scan form: horizontal-tap matmul with vertical taps
+    as channels + diagonal row-shift sum, per vertical residue. Parity vs
+    the scalar golden at the same accumulation-order class, including a 3x
+    (qy=qx=3, fs=98) geometry."""
+    from jincresize_tpu import apply_conv
     from jincresize_tpu.apply_conv import ConvApplier
 
+    monkeypatch.setattr(apply_conv, "DEEP_FORM", "matmul")
     for dw, dh in ((240, 135), (160, 90)):
         op = build_plane_operator(480, 270, dw, dh, radius_for_tap(16))
         assert op.filter_size ** 2 > 2048
-        app = ConvApplier(op, interior="shift")
+        app = ConvApplier(op)
         src = (
             np.random.default_rng(9)
             .integers(0, 256, (270, 480))

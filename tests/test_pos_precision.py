@@ -4,7 +4,7 @@ The reference accumulates positions in float32 (JincResize.cpp:524, 527);
 the resulting drift fragments rational scale ratios into quasi-periodic
 class sequences that fall off the phase-conv path. pos_precision='f64'
 evaluates positions directly in float64 — a documented non-parity mode whose
-geometry stays exactly periodic for rational ratios, so the MXU conv path
+geometry stays exactly periodic for rational ratios, so the phase-conv path
 runs them. These tests pin: (a) the periodicity claim, (b) closeness to the
 parity output, (c) the engine actually selected, (d) validation/cache keys.
 """
@@ -97,7 +97,7 @@ def test_f64_close_to_parity_and_uses_conv():
     r = JincResizer(clip.format, 320, 240,
                     JincConfig(target_width=480, target_height=360,
                                pos_precision="f64", **kw))
-    assert r.engines["luma"] in ("fused", "shift")  # conv path selected
+    assert r.engines["luma"] == "shift"  # conv path selected
 
 
 def test_f64_impl_conv_accepts_quasi_periodic():

@@ -106,7 +106,7 @@ def test_two_device_mesh_reaches_conv_interior():
     plan = plan_row_shard(op, 2)
     assert not plan.replicate_src
     ap = ShardedApplier(op, make_mesh(n_rows=2))
-    assert ap.interior == "conv-fused"
+    assert ap.interior == "conv-shift"
     rng = np.random.default_rng(11)
     src = rng.random((72, 96), dtype=np.float32)
     out = np.asarray(ap(src))
@@ -151,7 +151,8 @@ def test_sharded_conv_interior_parity(mesh8):
 
 
 def test_sharded_conv_matches_gather(mesh8):
-    """Cross-impl equivalence between the two sharded interiors."""
+    """Cross-impl equivalence between the two sharded interiors (the
+    phase-conv shift-sum and the uniform gather form)."""
     from jincresize_tpu.sharding import make_sharded_apply
 
     op = build_plane_operator(96, 72, 192, 144, radius_for_tap(4))
@@ -176,24 +177,9 @@ def test_sharded_conv_data_axis(mesh_2x4):
     assert np.abs(out - ref).max() <= 1e-6
 
 
-def test_sharded_gather_pallas_interior(mesh8):
-    """The sharded gather path runs the Pallas band kernel per device (r3
-    VERDICT missing #3), not the fs^2-step scan-gather: info reports the
-    kernel tiles and parity holds against the scalar oracle."""
-    from jincresize_tpu.sharding import make_sharded_apply
-
-    op = build_plane_operator(96, 72, 160, 120, radius_for_tap(3))
-    fn, _plan = make_sharded_apply(op, mesh8, impl="gather")
-    assert fn.info["interior"] == "gather" and "tiles" in fn.info
-    src = np.random.default_rng(11).random((72, 96)).astype(np.float32)
-    out = np.asarray(fn(src))
-    ref = apply_plane_numpy(op, src)
-    np.testing.assert_allclose(out, ref, rtol=0, atol=2e-5)
-
-
 def test_sharded_gather_scan_fallback(mesh8):
-    """Geometries outside the band kernel envelope (fs^2 > 1200: tap16 deep
-    downscale) still run via the uniform scan-gather fallback."""
+    """impl='gather' forces the uniform scan-gather form, here on a tap16
+    deep downscale (fs^2 > 1200)."""
     from jincresize_tpu.sharding import make_sharded_apply
 
     op = build_plane_operator(240, 168, 80, 56, radius_for_tap(16))
@@ -213,7 +199,7 @@ def test_sharded_applier_u8_u16_batched(mesh_2x4):
 
     op = build_plane_operator(96, 72, 160, 120, radius_for_tap(3))
     ap = ShardedApplier(op, mesh_2x4)
-    assert ap.interior in ("conv-fused", "conv-shift", "gather", "gather-scan")
+    assert ap.interior in ("conv-shift", "gather-scan")
     rng = np.random.default_rng(5)
     # u8, batch of 3 (not divisible by the data axis of 2 -> pad path).
     src8 = rng.integers(0, 256, (3, 72, 96)).astype(np.uint8)
@@ -265,72 +251,15 @@ def test_api_impl_sharded(mesh8):
             assert np.abs(a - b).max() <= 1, (i, n)
 
 
-def test_sharded_seg_interior_parity(mesh8):
-    """r4 VERDICT missing #3: drifted rational scales on a mesh must ride
-    the segment-periodic MXU interior, not downgrade to the gather kernel.
-    Per-device variation travels in the scalar-prefetched rowmeta; weight
-    slabs are replicated (device-invariant)."""
-    from jincresize_tpu.apply_conv_seg import SegConvApplier
-    from jincresize_tpu.sharding import make_mesh, make_sharded_apply
-
-    op = build_plane_operator(640, 360, 960, 540, radius_for_tap(8))
-    src = np.random.default_rng(3).random((360, 640), dtype=np.float32)
-    ref = apply_plane_numpy(op, src)
-    single = np.asarray(SegConvApplier(op, interpret=True)(src))
-    for k in (2, 4, 8):
-        fn, _ = make_sharded_apply(op, make_mesh(n_rows=k), impl="seg")
-        assert fn.info["interior"] == "seg"
-        out = np.asarray(fn(src))
-        # Same accumulation-order tolerance class as the single-chip seg
-        # float test (2e-5); vs the single-chip seg engine itself the
-        # deviation is ~1 ulp of the dot ordering.
-        np.testing.assert_allclose(out, ref, rtol=0, atol=2e-5)
-        np.testing.assert_allclose(out, single, rtol=0, atol=2e-6)
-        outu = np.asarray(fn(src, out_dtype=np.uint8, peak=255.0))
-        refu = apply_plane_numpy(op, src, out_dtype=np.uint8, peak=255.0)
-        assert int(np.abs(outu.astype(int) - refu.astype(int)).max()) <= 1
-
-
-def test_sharded_seg_auto_routing_and_batch(mesh_2x4):
-    """impl='auto' on a drifted geometry picks the seg interior before the
-    gather kernel; the data-axis SpMM form matches per-frame outputs."""
-    from jincresize_tpu.sharding import make_sharded_apply
-
-    op = build_plane_operator(640, 360, 960, 540, radius_for_tap(8))
-    fn, _ = make_sharded_apply(op, mesh_2x4, data_axis="data", impl="auto")
-    assert fn.info["interior"] == "seg"
-    src = np.random.default_rng(4).random((4, 360, 640), dtype=np.float32)
-    out = np.asarray(fn(src, out_dtype=np.uint8, peak=255.0))
-    for f in range(4):
-        refu = apply_plane_numpy(op, src[f], out_dtype=np.uint8, peak=255.0)
-        assert int(np.abs(out[f].astype(int) - refu.astype(int)).max()) <= 1
-
-
-def test_sharded_seg_with_exceptions(mesh8):
-    """Exception columns (2.5x start-offset outliers) are patched on every
-    device; sharded output matches the golden at 1 LSB."""
-    from jincresize_tpu.phase import plan_phases_seg
-    from jincresize_tpu.sharding import make_mesh, make_sharded_apply
-
-    op = build_plane_operator(1920, 80, 4800, 200, radius_for_tap(2))
-    plan = plan_phases_seg(op)
-    assert plan is not None and len(plan.x.exceptions) > 0
-    fn, _ = make_sharded_apply(op, make_mesh(n_rows=2), impl="seg")
-    assert fn.info["interior"] == "seg"
-    src = np.random.default_rng(3).integers(0, 256, (80, 1920)).astype(np.uint8)
-    out = np.asarray(fn(src, out_dtype=np.uint8, peak=255.0))
-    ref = apply_plane_numpy(op, src, out_dtype=np.uint8, peak=255.0)
-    assert int(np.abs(out.astype(int) - ref.astype(int)).max()) <= 1
-
-
 def test_row_only_mesh_frame_batch(mesh8):
-    """Frame batches on a row-only mesh run ONE vmapped-inside-shard call
-    (r5): parity per frame vs the golden, all interiors."""
+    """Frame batches on a row-only mesh run ONE vmapped-inside-shard call:
+    parity per frame vs the golden, both interiors (the drifted 1.5x
+    geometry takes the uniform form under auto)."""
     from jincresize_tpu.sharding import make_sharded_apply
 
     for op, impl, tol in [
         (build_plane_operator(96, 72, 192, 144, radius_for_tap(3)), "conv", 1e-6),
-        (build_plane_operator(640, 360, 960, 540, radius_for_tap(8)), "seg", 2e-5),
+        (build_plane_operator(320, 180, 480, 270, radius_for_tap(8)), "auto", 2e-5),
         (build_plane_operator(96, 72, 160, 120, radius_for_tap(3)), "gather", 2e-5),
     ]:
         fn, _ = make_sharded_apply(op, mesh8, impl=impl)
@@ -344,46 +273,17 @@ def test_row_only_mesh_frame_batch(mesh8):
             assert np.abs(out[f] - ref).max() <= tol, (impl, f)
 
 
-def test_api_mesh_drifted_selects_seg(mesh8):
-    """User surface: jinc_resize(mesh=...) on a drifted rational upscale
-    reports the seg interior per plane (r5 — attaching a mesh no longer
-    downgrades the parity MXU path) and matches the host golden."""
-    from jincresize_tpu.api import jinc_resize
-    from jincresize_tpu.clip import Clip, gray, random_frame
-    from jincresize_tpu.sharding import make_mesh
-
-    clip = Clip.from_frames([random_frame(gray(8), 640, 360, seed=5)])
-    mesh = make_mesh(n_rows=4)
-    from jincresize_tpu.api import JincConfig, JincResizer
-
-    r = JincResizer(
-        gray(8),
-        640,
-        360,
-        JincConfig(target_width=960, target_height=540, tap=8),
-        mesh=mesh,
-    )
-    assert all(e.endswith("seg") for e in r.engines.values()), r.engines
-    out = jinc_resize(clip, 960, 540, tap=8, mesh=mesh)
-    ref = jinc_resize(clip, 960, 540, tap=8, impl="numpy")
-    a = out.frames[0].planes["Y"].astype(int)
-    b = ref.frames[0].planes["Y"].astype(int)
-    assert np.abs(a - b).max() <= 1
-
-
 def test_sharded_conv_deep_tap(mesh8=None):
-    """r5: deep-tap plans (fs^2 > 1200, py*px <= 4) are inside the fused
-    envelope, and make_sharded_apply_conv picks interiors through the SAME
-    pallas_fused.is_supported — so a periodic tap16 2x downscale on a mesh
-    now rides the per-device fused interior instead of the fs^2-step
-    scan-gather fallback (measured 1527 ms/frame-class in r4). 2-row mesh:
-    the halo is fs-1 = 64 rows on a 270-row source."""
+    """A periodic tap16 2x downscale (fs^2 > 1200) on a mesh rides the
+    per-device phase-conv interior (its deep-tap form), not the fs^2-step
+    scan-gather. 2-row mesh: the halo is fs-1 = 64 rows on a 270-row
+    source."""
     from jincresize_tpu.sharding import ShardedApplier, make_mesh
 
     op = build_plane_operator(480, 270, 240, 135, radius_for_tap(16))
     assert op.filter_size == 65
     ap = ShardedApplier(op, make_mesh(n_rows=2))
-    assert ap.interior == "conv-fused", ap.interior
+    assert ap.interior == "conv-shift", ap.interior
     src = np.random.default_rng(5).random((270, 480), dtype=np.float32)
     out = np.asarray(ap(src))
     ref = apply_plane_numpy(op, src)
@@ -392,3 +292,96 @@ def test_sharded_conv_deep_tap(mesh8=None):
     # (measured 2.6e-6 max here) — same tolerance class as the reference's
     # own C-vs-SIMD paths at this tap count.
     assert np.abs(out - ref).max() <= 4e-6
+
+
+# Geometry classes of the single-device engine tests, on the 8-device mesh:
+# periodic (2x up, 2/3 down, 4x up, sub-pixel crop), drifted (1.5x) and
+# aperiodic (96x64 -> 167x113). 'auto' resolves to 'conv-shift' where the
+# geometry is periodic and the halos fit, else to the uniform form.
+SHARDED_GEOMETRIES = [
+    ("2x-up-tap8", (128, 96, 256, 192), 8, {}, "conv-shift"),
+    ("2/3-down-tap4", (360, 240, 240, 160), 4, {}, "conv-shift"),
+    ("4x-up-tap3", (64, 64, 256, 256), 3, {}, "conv-shift"),
+    (
+        "subpixel-crop",
+        (64, 48, 128, 96),
+        4,
+        {"crop_left": 0.25, "crop_top": -0.5},
+        "conv-shift",
+    ),
+    ("drifted-1.5x", (320, 180, 480, 270), 8, {}, "gather-scan"),
+    ("aperiodic", (96, 64, 167, 113), 3, {}, "gather-scan"),
+]
+
+
+@pytest.mark.parametrize(
+    "name,geo,tap,crop,interior",
+    SHARDED_GEOMETRIES,
+    ids=[g[0] for g in SHARDED_GEOMETRIES],
+)
+def test_sharded_auto_parity(mesh8, name, geo, tap, crop, interior):
+    """Sharded 'auto' picks the expected interior; u8 parity vs the golden."""
+    from jincresize_tpu.sharding import ShardedApplier
+
+    sw, sh, dw, dh = geo
+    op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap), **crop)
+    ap = ShardedApplier(op, mesh8)
+    assert ap.interior == interior
+    src = np.random.default_rng(8).integers(0, 256, (sh, sw)).astype(np.uint8)
+    out = np.asarray(ap(src, out_dtype=np.uint8, peak=255.0))
+    ref = apply_plane_numpy(op, src, out_dtype=np.uint8, peak=255.0)
+    assert int(np.abs(out.astype(int) - ref.astype(int)).max()) <= 1
+
+
+@pytest.mark.parametrize(
+    "name,geo,tap,crop",
+    [g[:4] for g in SHARDED_GEOMETRIES[:4]],
+    ids=[g[0] for g in SHARDED_GEOMETRIES[:4]],
+)
+def test_sharded_uniform_parity_periodic(mesh8, name, geo, tap, crop):
+    """The uniform form (impl='gather') on the periodic geometries: float32
+    parity vs the golden."""
+    from jincresize_tpu.sharding import make_sharded_apply
+
+    sw, sh, dw, dh = geo
+    op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap), **crop)
+    fn, _ = make_sharded_apply(op, mesh8, impl="gather")
+    assert fn.info["interior"] == "gather-scan"
+    src = np.random.default_rng(9).random((sh, sw), dtype=np.float32)
+    out = np.asarray(fn(src))
+    ref = apply_plane_numpy(op, src)
+    assert np.abs(out - ref).max() <= 2e-6
+
+
+def test_sharded_impl_validation(mesh8):
+    """Removed interiors ('seg', 'pallas') are unknown impls."""
+    from jincresize_tpu.sharding import make_sharded_apply
+
+    op = build_plane_operator(96, 72, 160, 120, radius_for_tap(3))
+    for impl in ("seg", "pallas"):
+        with pytest.raises(ValueError, match="unknown impl"):
+            make_sharded_apply(op, mesh8, impl=impl)
+
+
+@pytest.mark.parametrize("impl", ["conv", "gather"])
+def test_sharded_tables_not_captured(mesh8, impl):
+    """The per-pixel block tables ride as jit arguments: captured as
+    constants they were embedded in the executable (3.3 GB at tap16 4K->8K,
+    past the 2 GB executable limit)."""
+    import warnings
+
+    import jax
+
+    from jincresize_tpu.sharding import make_mesh, make_sharded_apply
+
+    op = build_plane_operator(192, 128, 384, 256, radius_for_tap(16))
+    fn, _ = make_sharded_apply(op, make_mesh(n_rows=2), impl=impl)
+    before = jax.config.jax_captured_constants_warn_bytes
+    jax.config.update("jax_captured_constants_warn_bytes", 1 << 20)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            out = fn(np.zeros((128, 192), np.float32))
+    finally:
+        jax.config.update("jax_captured_constants_warn_bytes", before)
+    assert out.shape == (256, 384)
