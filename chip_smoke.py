@@ -40,7 +40,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from jincresize_tpu import apply_conv  # noqa: E402
 from jincresize_tpu.api import JincConfig, JincResizer, jinc_resize  # noqa: E402
 from jincresize_tpu.clip import Clip, gray, random_frame, yuv420p, yuv444p  # noqa: E402
 from jincresize_tpu.compile_cache import enable_compile_cache  # noqa: E402
@@ -215,14 +214,14 @@ SERVED = [
 ]
 
 # Geometry sweep at small sizes: (name, sw, sh, dw, dh, tap, bits, kwargs).
-# "deep" pins the deep-tap form; "fmt": "420" selects yuv420p.
+# "fmt": "420" selects yuv420p.
 SWEEP = [
     ("2x upscale qx=1", 96, 64, 192, 128, 8, 8, {}),
     ("2x downscale qx=2", 192, 128, 96, 64, 3, 8, {}),
     ("3/2 upscale px=3 qx=2", 128, 96, 192, 144, 4, 16, {}),
     ("4x upscale px=4", 64, 48, 256, 192, 3, 32, {}),
     ("2/3 downscale px=2 qx=3", 192, 144, 128, 96, 3, 8, {}),
-    ("subpixel crop", 100, 80, 160, 120, 4, 8, {"src_left": 1.25, "src_top": 0.5}),
+    ("2x subpixel crop", 96, 64, 192, 128, 4, 8, {"src_left": 1.25, "src_top": 0.5}),
     ("blur + quant1", 96, 64, 144, 96, 3, 16, {"blur": 0.98, "quant_x": 1, "quant_y": 1}),
     ("tap16 2x upscale", 96, 64, 192, 128, 16, 32, {}),
     ("420 topleft chroma", 128, 96, 256, 192, 3, 8, {"cplace": "topleft", "fmt": "420"}),
@@ -236,9 +235,8 @@ SWEEP = [
     # Drifted rational scales under parity positions: the XLA path.
     ("1.5x drifted parity", 640, 360, 960, 540, 8, 8, {}),
     ("2.5x exceptions", 1920, 80, 4800, 200, 2, 8, {}),
-    # Deep-tap plans (fs^2 > SHIFT_UNROLL_MAX): both interior forms.
-    ("tap16 0.5x deep scan", 480, 270, 240, 135, 16, 32, {"deep": "scan"}),
-    ("tap16 0.5x deep matmul", 480, 270, 240, 135, 16, 8, {"deep": "matmul"}),
+    # Deep-tap plans (fs^2 > SHIFT_UNROLL_MAX): the scan-form interior.
+    ("tap16 0.5x deep", 480, 270, 240, 135, 16, 32, {}),
     ("tap16 2/3 deep p2", 480, 270, 320, 180, 16, 32, {}),
 ]
 
@@ -246,16 +244,9 @@ SWEEP = [
 def sweep_case(name, sw, sh, dw, dh, tap, bits, kw) -> None:
     kw = dict(kw)
     fmt = yuv420p(bits) if kw.pop("fmt", None) == "420" else yuv444p(bits)
-    deep = kw.pop("deep", apply_conv.DEEP_FORM)
     clip = _clip(fmt, sw, sh, 1, seed=7)
-    saved, apply_conv.DEEP_FORM = apply_conv.DEEP_FORM, deep
-    try:
-        out = jinc_resize(clip, dw, dh, tap=tap, **kw)
-        r = JincResizer(
-            fmt, sw, sh, JincConfig(dw, dh, tap=tap, **kw), frame0=clip.frames[0]
-        )
-    finally:
-        apply_conv.DEEP_FORM = saved
+    r = JincResizer(fmt, sw, sh, JincConfig(dw, dh, tap=tap, **kw), frame0=clip.frames[0])
+    out = r(clip)
     ref = jinc_resize(clip, dw, dh, tap=tap, impl="numpy", **kw).frames[0]
     d = max(max_dev(out.frames[0].planes[n], ref.planes[n]) for n in ref.planes)
     ok = within_tol(out.frames[0].planes["Y"], d)

@@ -209,6 +209,14 @@ def apply_plane(
     return acc
 
 
+def varying_zeros(shape, *like: jax.Array) -> jax.Array:
+    """float32 zeros, as device-varying inside shard_map as ``like``: a
+    scan's carry must have the type of the values it accumulates."""
+    zeros = jnp.zeros(shape, jnp.float32)
+    vma = tuple(sorted(set().union(*(jax.typeof(x).vma for x in like))))
+    return jax.lax.pcast(zeros, vma, to="varying") if vma else zeros
+
+
 def tap_sum(P: jax.Array, W: jax.Array) -> jax.Array:
     """``sum_{a,l} P[a, ..., l] * W[..., a, l]``, accumulated one tap at a
     time in row-major (a, l) order from zero — the golden's order
@@ -230,7 +238,7 @@ def tap_sum(P: jax.Array, W: jax.Array) -> jax.Array:
         return acc, None
 
     shape = jnp.broadcast_shapes(P.shape[1:-1], Wt.shape[1:-1])
-    acc, _ = jax.lax.scan(body, jnp.zeros(shape, jnp.float32), (P, Wt))
+    acc, _ = jax.lax.scan(body, varying_zeros(shape, P, Wt), (P, Wt))
     return acc
 
 

@@ -203,43 +203,18 @@ def test_tap16_deep_downscale_engine_selection():
         assert engine == "shift", engine
 
 
-def test_tap16_downscale_scan_shift_parity(monkeypatch):
-    """fs=65 (4225 taps) through the scan-form shift-sum (_shift_sum_scan):
-    the unrolled program at this size is too large to compile. Parity vs
-    the scalar-semantics golden at the conv path's accumulation-order
-    class."""
-    from jincresize_tpu import apply_conv
+@pytest.mark.parametrize("dst", [(240, 135), (160, 90)], ids=["0.5x", "1/3x"])
+def test_tap16_downscale_scan_shift_parity(dst):
+    """fs=65 (4225 taps) and, at 1/3x, fs=98 with qy=qx=3, through the
+    scan-form shift-sum (_shift_sum_scan): the unrolled program at this size
+    is too large to compile. Parity vs the scalar-semantics golden at the
+    conv path's accumulation-order class."""
     from jincresize_tpu.apply_conv import ConvApplier
 
-    monkeypatch.setattr(apply_conv, "DEEP_FORM", "scan")
-    op = build_plane_operator(480, 270, 240, 135, radius_for_tap(16))
+    op = build_plane_operator(480, 270, *dst, radius_for_tap(16))
     assert op.filter_size ** 2 > 2048
     app = ConvApplier(op)
     src = np.random.default_rng(9).integers(0, 256, (270, 480)).astype(np.uint8)
     out = np.asarray(app(src, out_dtype=np.uint8, peak=255.0))
     ref = apply_plane_numpy(op, src, out_dtype=np.uint8, peak=255.0)
     assert int(np.abs(out.astype(int) - ref.astype(int)).max()) <= 1
-
-
-def test_tap16_downscale_mxu_shift_parity(monkeypatch):
-    """The channelized matmul deep-tap form (_shift_sum_matmul) computes the
-    same interior as the scan form: horizontal-tap matmul with vertical taps
-    as channels + diagonal row-shift sum, per vertical residue. Parity vs
-    the scalar golden at the same accumulation-order class, including a 3x
-    (qy=qx=3, fs=98) geometry."""
-    from jincresize_tpu import apply_conv
-    from jincresize_tpu.apply_conv import ConvApplier
-
-    monkeypatch.setattr(apply_conv, "DEEP_FORM", "matmul")
-    for dw, dh in ((240, 135), (160, 90)):
-        op = build_plane_operator(480, 270, dw, dh, radius_for_tap(16))
-        assert op.filter_size ** 2 > 2048
-        app = ConvApplier(op)
-        src = (
-            np.random.default_rng(9)
-            .integers(0, 256, (270, 480))
-            .astype(np.uint8)
-        )
-        out = np.asarray(app(src, out_dtype=np.uint8, peak=255.0))
-        ref = apply_plane_numpy(op, src, out_dtype=np.uint8, peak=255.0)
-        assert int(np.abs(out.astype(int) - ref.astype(int)).max()) <= 1

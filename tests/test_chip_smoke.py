@@ -122,9 +122,9 @@ def test_served_case_rehearsal(case):
     chip_smoke.served_case(name, fmt, src, dst, tap, frames, **kw)
 
 
-@pytest.mark.parametrize("i", [0, 10, 12, 14, 15])
+@pytest.mark.parametrize("i", [0, 5, 10, 12, 14, 15])
 def test_sweep_case_rehearsal(i):
-    """Phase 3 cases on the CPU (periodic, wide-phase, drifted, deep)."""
+    """Phase 3 cases on the CPU (periodic, crop, wide-phase, drifted, deep)."""
     import chip_smoke
 
     chip_smoke.sweep_case(*chip_smoke.SWEEP[i])

@@ -111,10 +111,9 @@ def test_removed_impl_rejected_by_cli(impl, tmp_path, capsys):
     assert "invalid choice" in capsys.readouterr().err
 
 
-def test_deep_matmul_offset_group_wider_window(monkeypatch):
-    """An offset group of a deep-tap plan reads a window wider than its own
-    taps need (here nxb = 128 = one column tile); the channelized matmul
-    form crops it instead of padding by a negative width, and matches the
+def test_deep_scan_offset_group_matches_unrolled(monkeypatch):
+    """An offset-grouped deep-tap plan: each group's scan reads a window
+    wider than its own taps need (offset by its embedding), and matches the
     unrolled shift-sum."""
     import jax.numpy as jnp
 
@@ -134,7 +133,5 @@ def test_deep_matmul_offset_group_wider_window(monkeypatch):
     args = (lhs, jnp.asarray(K), offsets, qy, qx, nyb, nxb, fs)
     ref = np.asarray(apply_conv.phase_interior(*args))  # unrolled
     monkeypatch.setattr(apply_conv, "SHIFT_UNROLL_MAX", 16)
-    for form in ("matmul", "scan"):
-        monkeypatch.setattr(apply_conv, "DEEP_FORM", form)
-        out = np.asarray(apply_conv.phase_interior(*args))
-        np.testing.assert_allclose(out, ref, rtol=0, atol=2e-6, err_msg=form)
+    out = np.asarray(apply_conv.phase_interior(*args))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2e-6)

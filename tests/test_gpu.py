@@ -60,18 +60,3 @@ def test_gpu_xla_path_parity(geo, tap):
     out = np.asarray(apply_xla.resize_plane(apply_xla.to_device(op), jnp.asarray(src)))
     assert float(np.abs(out - apply_plane_numpy(op, src)).max()) <= 2e-6
 
-
-def test_gpu_deep_matmul_form_u8(monkeypatch):
-    """The channelized matmul deep-tap form at HIGHEST holds 1 LSB."""
-    import jax.numpy as jnp
-
-    from jincresize_tpu import apply_conv
-
-    monkeypatch.setattr(apply_conv, "DEEP_FORM", "matmul")
-    op = build_plane_operator(480, 270, 240, 135, radius_for_tap(16))
-    src = np.random.default_rng(2).integers(0, 256, (270, 480)).astype(np.uint8)
-    out = np.asarray(
-        apply_conv.ConvApplier(op)(jnp.asarray(src), out_dtype=np.uint8, peak=255.0)
-    )
-    ref = apply_plane_numpy(op, src, out_dtype=np.uint8, peak=255.0)
-    assert int(np.abs(out.astype(int) - ref.astype(int)).max()) <= 1

@@ -61,6 +61,7 @@ CASES = [
     # (id, lowering, args, minimum dot_general count)
     ("conv-exception-fixups", _conv, ((160, 120, 400, 300), 3), 1),
     ("conv-headline-2x", _conv, ((128, 96, 256, 192), 8), 0),
+    ("conv-deep-tap16", _conv, ((480, 270, 240, 135), 16), 0),
     ("xla-class-contraction", _xla, ((64, 48, 128, 96), 3), 1),
     ("xla-general", _xla, ((96, 64, 167, 113), 3), 1),
     ("sharded-conv", _sharded, ((128, 96, 256, 192), 8, "conv"), 0),
@@ -73,14 +74,6 @@ CASES = [
 )
 def test_parity_path_dots_are_highest(name, lower, args, min_dots):
     _assert_explicit(lower(*args), min_dots)
-
-
-def test_deep_matmul_form_dots_are_highest(monkeypatch):
-    """The channelized deep-tap form is a real matmul: HIGHEST by default."""
-    from jincresize_tpu import apply_conv
-
-    monkeypatch.setattr(apply_conv, "DEEP_FORM", "matmul")
-    _assert_explicit(_conv((480, 270, 240, 135), 16), 1)
 
 
 def test_checker_flags_default_precision():

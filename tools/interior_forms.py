@@ -7,8 +7,6 @@ source windows and weights, vmapped over a frame batch:
 
   shift          unrolled shift-sum (apply_conv.phase_interior's default)
   scan           _shift_sum_scan: tap rows in a lax.scan, golden tap order
-  matmul         _shift_sum_matmul at HIGHEST (full float32 products)
-  matmul-<algo>  _shift_sum_matmul with a split-pass dot algorithm
   conv           lax.conv_general_dilated at HIGHEST (cuDNN on the GPU)
 
 Geometries: Jinc256 tap 8 4K->8K (the headline, fs^2 = 289) and tap 16
@@ -58,7 +56,6 @@ def main():
     print(f"# device {d.platform} {d.device_kind}; card: {card}", flush=True)
 
     HIGHEST = jax.lax.Precision.HIGHEST
-    P = jax.lax.DotAlgorithmPreset
     div = 4 if args.small else 1
     geos = [
         ("tap8 4K->8K", (3840, 2160, 7680, 4320), 8),
@@ -106,15 +103,6 @@ def main():
                 x, K, cop.phase_offsets, qy, qx, nyb, nxb, fs
             )
         forms["scan"] = lambda x: ac._shift_sum_scan(x, K, qy, qx, nyb, nxb)
-        forms["matmul"] = lambda x: ac._shift_sum_matmul(x, K, qy, qx, nyb, nxb)
-        for name, algo in (
-            ("matmul-bf16x3", P.BF16_BF16_F32_X3),
-            ("matmul-bf16x6", P.BF16_BF16_F32_X6),
-            ("matmul-tf32x3", P.TF32_TF32_F32_X3),
-        ):
-            forms[name] = lambda x, a=algo: ac._shift_sum_matmul(
-                x, K, qy, qx, nyb, nxb, precision=a
-            )
         forms["conv"] = conv_form
 
         ref = None
